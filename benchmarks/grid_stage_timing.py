@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Attribute the per-batch wall-clock of the grid-collapse chi^2 path.
 
-Times, on the active backend (TPU unless JAX_PLATFORMS=cpu):
+Times, on the active backend (the GPU unless JAX_PLATFORMS=cpu):
 
-  0. a no-op dispatch            -> transport/dispatch floor
+  0. a no-op dispatch            -> dispatch floor
   1. psi only                    -> Chebyshev recurrences + outer
   2. psi @ B_i (all corrs)       -> mode contraction
   3. (psi @ B_i) @ F_i           -> payload interpolation

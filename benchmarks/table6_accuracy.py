@@ -27,7 +27,7 @@ Run from anywhere; needs /root/reference mounted (copied to a temp dir
 so the [sample] section can be patched — /root/reference is
 read-only). Results go to benchmarks/table6_accuracy.json and are
 quoted in docs/performance.md; the throughput of this regime is
-measured on the v5e by `VEGA_TPU_BENCH_TABLE6=1 python bench.py`.
+measured by `VEGA_TPU_BENCH_TABLE6=1 python bench.py`.
 """
 
 import json

@@ -1,6 +1,6 @@
 """Tutorial 6 — Batched likelihoods, samplers, Monte-Carlo campaigns.
 
-The TPU-native replacement for the reference's MPI fan-outs: parameter
+The device-batched replacement for the reference's MPI fan-outs: parameter
 batches shard over a jax device Mesh, the native nested / SMC samplers
 drive the batched likelihood, and mock campaigns fit every realization
 simultaneously.

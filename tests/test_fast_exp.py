@@ -1,9 +1,9 @@
 """fast_exp64 accuracy and the grid_exp dispatch.
 
-The TPU f64 mode routes the hot (muk x k)-grid exponentials through a
-Cody-Waite + degree-10 Taylor exp (utils.fast_exp64) instead of XLA's
-full-precision emulation. The chi^2 parity budget is 1e-8 relative;
-the kernel must sit far inside it.
+VEGA_TPU_FAST_EXP=1 routes the hot (muk x k)-grid exponentials through
+a Cody-Waite + degree-10 Taylor exp (utils.fast_exp64) instead of
+jnp.exp. The chi^2 parity budget is 1e-8 relative; the kernel must sit
+far inside it.
 """
 
 import os

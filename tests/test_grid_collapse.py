@@ -44,16 +44,12 @@ def grid_setup():
     # (ap, at) is far sharper than real data's — pin 64 nodes/dim (the
     # 5e-3 bound below was measured there). The shipped default (32) is
     # exercised at its measured 1.7e-10 bound on the REFERENCE config by
-    # tests/test_grid_reference_accuracy.py. DS-matmul off: the exact-
-    # reassociation invariants below (batched == serial at rtol 1e-12)
-    # hold for the f64 contractions; the double-single A-block path has
-    # its own accuracy ladder in tests/test_ds_matmul.py (f32 MXU
-    # accumulation order differs between the serial vector and batched
-    # matrix forms, so DS batched-vs-serial agrees at ~1e-7, not 1e-15).
+    # tests/test_grid_reference_accuracy.py. The payload contracts in
+    # f64, so the batched and mesh-sharded paths below are exact
+    # reassociations of the serial one (rtol 1e-12).
     main_path = make_synthetic_dataset(
         workdir, cross=True, sample=sample,
-        extra_control=('grid-nodes-ap = 64\ngrid-nodes-at = 64\n'
-                       'ds-matmul = False'))
+        extra_control='grid-nodes-ap = 64\ngrid-nodes-at = 64\n')
     return VegaInterface(main_path), main_path
 
 
@@ -81,8 +77,7 @@ def test_payload_structure(grid_setup):
     for name in corrs:
         t = payload[name]['cref'].shape[0]
         # the payload is stored as two independently truncated and
-        # SVD-compressed blocks: A (curvature, double-single-eligible)
-        # and sy (edge-chi^2-scaled linear term + value, always f64).
+        # SVD-compressed blocks: A (curvature) and sy (edge-chi^2-scaled linear term + value, always f64).
         # Error-budgeted mode truncation indexes the retained modes via
         # 'modes_A'/'modes_sy'. On THIS config (near-noiseless
         # synthetic data, domain-corner chi^2 ~ 1e8) the validated
@@ -341,24 +336,6 @@ def test_payload_disk_cache(monkeypatch, tmp_path):
     vega3 = VegaInterface(main_path)
     vega3.get_collapsed(names)
     assert len(list(tmp_path.glob('grid_*.npz'))) == 2
-
-
-def test_batch_device_cpu(grid_setup):
-    """BatchedLikelihood(device='cpu') executes the batched graph on the
-    host CPU backend (the batched analogue of the serial fit providers
-    for tunneled-accelerator images) and agrees with the serial path."""
-    from vega_tpu.parallel import BatchedLikelihood
-
-    vega, _ = grid_setup
-    pts = _random_points(np.random.default_rng(21), 8)
-    serial = np.array([vega.chi2(p) for p in pts])
-    bl = BatchedLikelihood(vega, device='cpu')
-    assert all(d.platform == 'cpu' for d in bl.mesh.devices.ravel())
-    batches = {n: np.array([p[n] for p in pts]) for n in NAMES}
-    np.testing.assert_allclose(bl.chi2(batches), serial, rtol=1e-12)
-
-    with pytest.raises(ValueError):
-        BatchedLikelihood(vega, device='gpu')
 
 
 def test_fingerprint_isolation_and_content(monkeypatch, tmp_path):

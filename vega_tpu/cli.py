@@ -6,7 +6,7 @@ import sys
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description='vega_tpu — TPU-native Lyman-alpha forest '
+        description='vega_tpu — JAX Lyman-alpha forest '
                     'correlation-function likelihood engine')
     sub = parser.add_subparsers(dest='command')
 

@@ -1,6 +1,6 @@
 """Correlation-function (xi-space) model for one tracer pair.
 
-TPU-native counterpart of the reference's vega/correlation_func.py:
+JAX counterpart of the reference's vega/correlation_func.py:
 AP coordinate rescaling, bias redshift evolution, growth, QSO radiation,
 relativistic/asymmetry terms, UV shotnoise and the DESI instrumental
 systematics correction. All static quantities (growth factor on the z

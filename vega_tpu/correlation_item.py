@@ -130,7 +130,7 @@ class CorrelationItem:
         """Undistorted marginalization templates as a dense (N, n_temp)
         indicator matrix (reference: correlation_item.py:175-275; the
         sparse scipy matrices there become dense arrays — these end up in
-        MXU matmuls anyway)."""
+        dense device matmuls anyway)."""
         if 'all-rmin' not in self.marginalize_small_scales:
             indices = []
             coords = self.model_coordinates

@@ -4,9 +4,9 @@ marginalization templates.
 
 Counterpart of the reference's vega/data.py with two structural changes:
 - FITS I/O goes through the internal pure-numpy reader (vega_tpu.io.fits).
-- Sparse scipy matrices (distortion, metal) become dense f64 arrays: on
-  TPU these are MXU matmuls and the ~2500^2-5000^2 sizes are trivially
-  fast dense; sparsity buys nothing.
+- Sparse scipy matrices (distortion, metal) become dense f64 arrays:
+  on the device these are dense matmuls, and at the ~2500^2-5000^2
+  sizes sparsity buys nothing.
 """
 
 from __future__ import annotations

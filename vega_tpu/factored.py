@@ -20,7 +20,7 @@ evaluation reduces to the coefficient scalars plus one (T,) x (T, T)
 quadratic form, instead of (mu_k x k) grid arithmetic, a distortion
 matmul and an (n x n) covariance quadratic form per evaluation.
 
-This is the TPU-first replacement for the reference's value-cache layer
+This is the compiled-graph replacement for the reference's value-cache layer
 (reference: power_spectrum.py:311-324, metals.py:144-207): instead of
 caching factor grids between Python calls, the linear structure is made
 explicit so XLA executes the expensive part once per batch.

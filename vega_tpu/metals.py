@@ -1,12 +1,12 @@
 """Metal-contamination correlations.
 
-Counterpart of the reference's vega/metals.py. Structural changes for TPU:
+Counterpart of the reference's vega/metals.py. Structural changes:
 
 - The metal xi caches (reference: metals.py:144-207) are deleted — under
   jit every metal sub-correlation is a handful of fused matmuls, so the
   whole stack (~15 tracer pairs) is recomputed per eval and XLA batches
   the identical-shaped pipelines.
-- Metal distortion matrices are dense f64 arrays applied as MXU matmuls
+- Metal distortion matrices are dense f64 arrays applied as dense matmuls
   (or skipped entirely when the test flag substitutes the identity).
 - The new-metals distortion matrices from stacked-delta weights remain
   host-side numpy at init (irregular histogram work; reference:

@@ -3,7 +3,7 @@ systematics, broadbands and the distortion matrix.
 
 Counterpart of the reference's vega/model.py. `compute` is jax-traceable
 end to end and returns (xi, bad_flag); the distortion matrix application
-is a dense MXU matmul (the reference uses a sparse csr dot,
+is a dense matmul (the reference uses a sparse csr dot,
 model.py:143-144).
 """
 

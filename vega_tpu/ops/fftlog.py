@@ -2,7 +2,7 @@
 
 The reference does this per likelihood call with mcfit's P2xi (FFT + Gamma
 coefficients; reference: pktoxi.py:53,141 and the documented legacy
-algorithm at pktoxi.py:230-279). On TPU we exploit that for a *fixed* k
+algorithm at pktoxi.py:230-279). Here we exploit that for a *fixed* k
 grid the whole transform
 
     xi_ell(r_j) = (-1)^(ell/2)/(2 pi^2) * Integral dk k^2 j_ell(k r) P_ell(k)
@@ -10,7 +10,7 @@ grid the whole transform
 under the FFTLog log-periodic discretization (Hamilton 2000) is a LINEAR
 map of the sampled P_ell values. We therefore precompute the dense
 (N x N) operator once on the host (f64 numpy FFTs) and the per-eval work
-becomes a single MXU matmul — no complex FFT on device, fully fusable
+becomes a single dense matmul — no complex FFT on device, fully fusable
 with the Legendre projection and the spline solve.
 
 Conventions (chosen to match mcfit.P2xi(k, l=ell, lowring=True) with its

@@ -11,7 +11,7 @@ we reproduce them exactly with:
   2. a jitted gather + cubic Hermite evaluation at the (traced) query
      points.
 
-Per-eval cost: one (n x n) matmul (MXU) + gathers + FMA, batched over
+Per-eval cost: one (n x n) matmul + gathers + FMA, batched over
 multipoles and tracer pairs. The scipy per-call spline build disappears.
 """
 

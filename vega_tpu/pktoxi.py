@@ -1,11 +1,11 @@
 """P(k, mu_k) -> xi(r, mu) transform plan.
 
-TPU-native counterpart of the reference's vega/pktoxi.py. The per-call
+JAX counterpart of the reference's vega/pktoxi.py. The per-call
 scipy machinery there (mcfit FFTLog + interp1d per multipole,
 pktoxi.py:99-163) becomes three fused dense contractions on device:
 
   1. Legendre projection:   pk_ell = P_proj @ pk          (n_ell, n_k)
-  2. FFTLog + spline solve: xi_knots = L_ell @ pk_ell     (batched MXU)
+  2. FFTLog + spline solve: xi_knots = L_ell @ pk_ell     (batched matmul)
                             m_knots  = SL_ell @ pk_ell
   3. gather + cubic eval at log(rescaled r), times P_ell(mu), summed.
 
@@ -43,16 +43,6 @@ LEGENDRE_COEFFS = {
 # -> (fft_ops, logr_knots, fft_sd_ops). Init-time only.
 _OPERATOR_CACHE = {}
 _LEGACY_OPERATOR_CACHE = {}
-
-
-def _use_pallas_spline():
-    """Opt-in fused Pallas kernel for the spline+Legendre stage. f32
-    throughput mode only (TPU Pallas has no f64), and never on CPU."""
-    import os
-    import jax
-    return (os.environ.get('VEGA_TPU_PALLAS', '0') == '1'
-            and not jax.config.jax_enable_x64
-            and jax.default_backend() != 'cpu')
 
 
 def legendre(ell, x):
@@ -193,7 +183,6 @@ class PktoXi:
         # additive terms (reference: pktoxi.py:321-382 use the legacy path)
         self._rel_ops = None
         self._asy_ops = None
-        self._pallas_combine = None
 
     @classmethod
     def init_from_Pk(cls, pk, config):
@@ -305,8 +294,7 @@ class PktoXi:
             # classification (NOT from tracer-ness of r_grid: under
             # omnistaging every in-trace array is a tracer even when it
             # is parameter-independent)
-            if (single_ell < 0 and coords_param_free
-                    and not _use_pallas_spline()):
+            if single_ell < 0 and coords_param_free:
                 mask = r_grid != 0
                 safe_r = jnp.where(mask, r_grid, 1.0)
                 log_r = jnp.log(safe_r)
@@ -344,17 +332,6 @@ class PktoXi:
 
         legendre_mu = jnp.stack([legendre(ell, mu_grid)
                                  for ell in self.ell_vals])
-        if _use_pallas_spline():
-            if self._pallas_combine is None:
-                from .ops.pallas_spline import make_vmappable_combine
-                self._pallas_combine = make_vmappable_combine(
-                    self.logr_knots)
-            xi = self._pallas_combine(xi_knots, m_knots, log_r, legendre_mu)
-            oob_any = jnp.any(((log_r < self.logr_knots[0])
-                               | (log_r > self.logr_knots[-1])) & mask)
-            xi = jnp.where(mask, xi, 0.0)
-            return xi, oob_any
-
         vals, oob = spline_eval(self.logr_knots, xi_knots[:, None, :],
                                 m_knots[:, None, :], log_r[None, :])
         vals = vals[:, 0, :]                                    # (n_ell, n_r)

@@ -9,16 +9,16 @@ same public building blocks: `plot_data` (:191-262) / `plot_model`
 panel drivers `plot_1wedge` / `plot_2wedges` / `plot_4wedges`
 (:587-745), `plot_4wedge_panel` (:747-813), `plot_4shells` (:814-890)
 and `plot_sensitivity` (:892-1010). The weight-matrix machinery lives in
-wedges.py / shell.py; everything here is host-side matplotlib.
+wedges.py / shell.py; everything here is host-side matplotlib, imported
+when a figure is drawn.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import matplotlib.pyplot as plt
 
 from .shell import Shell
-from .utils import array_or_dict
+from .utils import array_or_dict, pyplot
 from .wedges import Wedge
 
 
@@ -369,9 +369,9 @@ class VegaPlots:
         """One wedge over the full mu range (reference:
         plots/plot.py:587-625)."""
         if not kwargs.get('no_font', False):
-            plt.rcParams['font.size'] = 14
+            pyplot().rcParams['font.size'] = 14
         if fig is None:
-            fig, ax = plt.subplots(1, figsize=(10, 6))
+            fig, ax = pyplot().subplots(1, figsize=(10, 6))
         else:
             ax = fig.axes[0]
         self.plot_wedge(ax, (0, 1), models=models, cov_mat=cov_mat,
@@ -391,11 +391,11 @@ class VegaPlots:
         plots/plot.py:627-679)."""
         assert len(mu_bins) == 3
         if not kwargs.get('no_font', False):
-            plt.rcParams['font.size'] = 14
+            pyplot().rcParams['font.size'] = 14
         if fig is None:
             shape = (2, 1) if vertical_plots else (1, 2)
             size = (10, 12) if vertical_plots else (18, 6)
-            fig, axs = plt.subplots(*shape, figsize=size)
+            fig, axs = pyplot().subplots(*shape, figsize=size)
         else:
             axs = np.array(fig.axes)
         for ax, mu_bin in zip(np.ravel(axs), self._wedge_limits(mu_bins)):
@@ -427,9 +427,9 @@ class VegaPlots:
         plots/plot.py:681-745)."""
         assert len(mu_bins) == 5
         if not kwargs.get('no_font', False):
-            plt.rcParams['font.size'] = 14
+            pyplot().rcParams['font.size'] = 14
         if fig is None:
-            fig, axs = plt.subplots(2, 2, figsize=figsize)
+            fig, axs = pyplot().subplots(2, 2, figsize=figsize)
         else:
             axs = np.array(fig.axes)
 
@@ -448,7 +448,7 @@ class VegaPlots:
             if self.has_data:
                 self._shade_cut_regions(ax, corr_name)
 
-        plt.tight_layout()
+        pyplot().tight_layout()
         self.fig = fig
         return fig
 
@@ -460,14 +460,14 @@ class VegaPlots:
         (reference: plots/plot.py:747-813)."""
         assert len(mu_bins) == 5
         if not kwargs.get('no_font', False):
-            plt.rcParams['font.size'] = 14
+            pyplot().rcParams['font.size'] = 14
         if fig is None:
-            fig, ax = plt.subplots(1, figsize=figsize)
+            fig, ax = pyplot().subplots(1, figsize=figsize)
         else:
             ax = fig.axes[0]
 
         if colors is None:
-            cmap = plt.get_cmap('seismic')
+            cmap = pyplot().get_cmap('seismic')
             colors = cmap((0.03, 0.25, 0.75, 1))
 
         for mu_bin, color in zip(self._wedge_limits(mu_bins), colors):
@@ -503,12 +503,12 @@ class VegaPlots:
             assert len(r_bins) == 5, \
                 'plot_4shells works with exactly 4 shells (5 bin edges)'
 
-        plt.rcParams['font.size'] = 16
-        fig, axs = plt.subplots(2, 2, figsize=(16, 8), sharex=True,
+        pyplot().rcParams['font.size'] = 16
+        fig, axs = pyplot().subplots(2, 2, figsize=(16, 8), sharex=True,
                                 height_ratios=(4, 1),
                                 gridspec_kw={'hspace': 0})
         r_zip = list(zip(r_bins[:-1], r_bins[1:]))
-        cmap = plt.get_cmap('seismic')
+        cmap = pyplot().get_cmap('seismic')
         colors = cmap((0.25, 0.75, 0.03, 1.0))
         fmts = ['d', '.', 'd', '.']
         cross = self.cross_flag.get(corr_name, 'qso' in corr_name)
@@ -546,7 +546,7 @@ class VegaPlots:
         key = (param, param) if (param, param) in fisher else param
         grid = np.asarray(fisher[key])[idistort].reshape(rp[2], rt[2])
 
-        fig, ax = plt.subplots(figsize=(8, 6))
+        fig, ax = pyplot().subplots(figsize=(8, 6))
         extent = [rt[0], rt[1], rp[0], rp[1]]
         im = ax.imshow(grid, origin='lower', extent=extent, aspect='auto',
                        cmap='RdBu_r')

@@ -4,10 +4,16 @@ vega/plots/utils.py): quick wedge panels without a VegaPlots instance."""
 from __future__ import annotations
 
 import numpy as np
-import matplotlib.pyplot as plt
 
 from .shell import Shell
 from .wedges import Wedge
+
+
+def pyplot():
+    """matplotlib.pyplot, imported where a figure is drawn: building
+    and fitting a VegaInterface needs no matplotlib."""
+    import matplotlib.pyplot as plt
+    return plt
 
 
 def array_or_dict(input_obj, corr_name='lyalya_lyalya'):
@@ -22,8 +28,8 @@ def plot_wedges(models, covariance, multi_model=False, labels=None,
                 data=None, cross=False):
     """Four mu-wedge panels of model(s) +/- data
     (reference: plots/utils.py:29-152)."""
-    plt.rcParams['font.size'] = 14
-    fig, axs = plt.subplots(2, 2, figsize=(18, 12))
+    pyplot().rcParams['font.size'] = 14
+    fig, axs = pyplot().subplots(2, 2, figsize=(18, 12))
     axs = np.array(axs).reshape(-1)
     mus = np.array([0., 0.5, 0.8, 0.95, 1.])
 
@@ -83,10 +89,10 @@ def plot_shells(vega, model, angle_var='theta', rs=(30, 40, 50, 60, 70),
     data_vec = np.asarray(data_obj.data_vec)
     cov = np.asarray(data_obj.cov_mat)
 
-    plt.rcParams['font.size'] = 16
-    fig, axs = plt.subplots(2, 2, figsize=(16, 8), sharex=True,
+    pyplot().rcParams['font.size'] = 16
+    fig, axs = pyplot().subplots(2, 2, figsize=(16, 8), sharex=True,
                             height_ratios=(4, 1))
-    cmap = plt.get_cmap('seismic')
+    cmap = pyplot().get_cmap('seismic')
     colors = cmap((0.25, 0.75, 0.03, 1.0))
     fmts = ['d', '.', 'd', '.']
     var_latex = {'mu': r'\mu', 'mu2': r'\mu^2'}.get(angle_var, r'\theta')
@@ -123,5 +129,5 @@ def plot_shells(vega, model, angle_var='theta', rs=(30, 40, 50, 60, 70),
 
     for ax in axs.flatten():
         ax.grid()
-    plt.tight_layout()
+    pyplot().tight_layout()
     return fig

@@ -1,4 +1,4 @@
-"""TPU-native Hamiltonian Monte Carlo sampler.
+"""Device-batched Hamiltonian Monte Carlo sampler.
 
 The reference has no gradient-based sampler — its likelihood is a
 host-side numpy pipeline, so PolyChord/PocoMC only ever see black-box

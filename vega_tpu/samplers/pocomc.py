@@ -2,7 +2,7 @@
 samplers/pocomc.py).
 
 When pocomc is installed the external sampler is driven; otherwise the
-same config is routed to the TPU-native SMC sampler (samplers/smc.py),
+same config is routed to the device-batched SMC sampler (samplers/smc.py),
 which accepts the PocoMC option names (n_effective, seed).
 """
 

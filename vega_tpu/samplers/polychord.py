@@ -3,7 +3,7 @@ samplers/polychord.py).
 
 When pypolychord is installed the external sampler is driven with the
 same settings surface as the reference; otherwise the same config is
-routed to the TPU-native batched NestedSampler (samplers/nested.py),
+routed to the device-batched NestedSampler (samplers/nested.py),
 which accepts the PolyChord option names (num_live, num_repeats,
 precision, resume, seed).
 """

@@ -1,4 +1,4 @@
-"""TPU-native Sequential Monte Carlo sampler.
+"""Device-batched Sequential Monte Carlo sampler.
 
 Replaces the reference's PocoMC dependency (torch + MPIPool particle
 maps; reference: samplers/pocomc.py, bin/run_vega_mpi.py:98-121) with an

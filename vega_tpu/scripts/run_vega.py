@@ -2,12 +2,7 @@
 """Fit driver: minimize, optionally scan, write output and diagnostic
 plots (reference: vega/scripts/run_vega.py)."""
 
-import matplotlib
-
-matplotlib.use('Agg')
-import matplotlib.pyplot as plt  # noqa: E402
-
-from vega_tpu.vega_interface import VegaInterface  # noqa: E402
+from vega_tpu.vega_interface import VegaInterface
 
 
 def run_vega(config_path):
@@ -37,6 +32,15 @@ def run_vega(config_path):
     vega.output.write_results(
         vega.bestfit_model, vega.params, vega.minimizer,
         vega.bestfit_corr_stats, scan_results, vega.models)
+
+    try:
+        import matplotlib
+    except ImportError:
+        print('INFO: matplotlib is not installed: the fit results are '
+              'written, the wedge and shell plots are not.')
+        return vega
+    matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
 
     num_pars = len(vega.sample_params['limits'])
     out_base = vega.output.outfile

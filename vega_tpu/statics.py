@@ -51,6 +51,7 @@ class StaticStore:
     def __init__(self):
         self._arrays = {}
         self._device_arrays = None
+        self._device_x64 = None
         self._by_hash = {}
         self._local = threading.local()
 
@@ -71,17 +72,21 @@ class StaticStore:
         return StaticRef(self, name, arr.shape, arr.dtype)
 
     def host_tree(self):
-        """The full store as host numpy arrays (for running param-
-        independent passes on the CPU backend)."""
+        """The full store as host numpy arrays (e.g. to place a
+        reference evaluation on another backend)."""
         return dict(self._arrays)
 
     def device_tree(self):
         """The full store as a dict of device arrays (cached; one H2D
-        transfer per array per process)."""
-        if self._device_arrays is None:
+        transfer per array and precision mode: toggling jax_enable_x64
+        in-process re-places the store in the new working dtype)."""
+        import jax
+        x64 = bool(jax.config.jax_enable_x64)
+        if self._device_arrays is None or self._device_x64 != x64:
             import jax.numpy as jnp
             self._device_arrays = {name: jnp.asarray(arr)
                                    for name, arr in self._arrays.items()}
+            self._device_x64 = x64
         return self._device_arrays
 
     @contextmanager

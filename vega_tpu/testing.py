@@ -315,3 +315,127 @@ def make_synthetic_dataset(workdir, cross=True, sample=None, seed=0,
             extra_control=extra_control))
 
     return main_path
+
+
+# --------------------------------------------------------------------------
+# DR16-shaped combined fit (reference: examples/eBOSS_DR16/main_combined.ini)
+# --------------------------------------------------------------------------
+# The STRUCTURE of the eBOSS DR16 flagship analysis on synthetic data:
+# four correlations (two Lya auto regions, two QSO crosses) with the DR16
+# model options (Rogers2018 HCD, Arinyo small-scale NL, BAO broadening,
+# Lorentz velocity dispersion, SiII(1260)/SiIII(1207) metals). At nt=50
+# the autos have 2,500 bins and the crosses 5,000.
+DR16_OPTIONS = {
+    'scale_params': 'ap_at',
+    'template': 'PlanckDR16/PlanckDR16.fits',
+    'small_scale_nl': True,
+    'bao_broadening': True,
+    'hcd_model': 'Rogers2018',
+    'velocity_dispersion': 'lorentz',
+    'metals': ['SiII(1260)', 'SiIII(1207)'],
+    'test': True,       # identity metal matrices (no picca metal files)
+}
+
+DR16_PARAMETERS = {
+    'ap': 1.0, 'at': 1.0, 'bao_amp': 1.,
+    'bias_LYA': -0.117, 'beta_LYA': 1.67, 'alpha_LYA': 2.9,
+    'bias_hcd': -0.052, 'beta_hcd': 0.65, 'L0_hcd': 10.,
+    'bias_QSO': 3.7, 'beta_QSO': 0.26, 'alpha_QSO': 1.44,
+    'drp_QSO': 0.0, 'sigma_velo_disp_lorentz_QSO': 6.86,
+    'bias_SiII(1260)': -0.002, 'beta_SiII(1260)': 0.5,
+    'alpha_SiII(1260)': 1.,
+    'bias_SiIII(1207)': -0.004, 'beta_SiIII(1207)': 0.5,
+    'alpha_SiIII(1207)': 1.,
+    'sigmaNL_per': 3.24, 'sigmaNL_par': 6.37, 'growth_rate': 0.97,
+}
+
+DR16_SAMPLED = ['ap', 'at', 'bias_LYA', 'beta_LYA']
+
+DR16_CORRS = {                # name -> (file stem, is_cross)
+    'lyaxlya': ('cf_lya', False),
+    'lyaxlyb': ('cf_lyb', False),
+    'lyaxqso': ('xcf_lya', True),
+    'lybxqso': ('xcf_lyb', True),
+}
+
+DR16_FIT_TYPES = {
+    'auto': 'lyaxlya_lyaxlyb',
+    'cross': 'lyaxqso_lybxqso',
+    'combined': 'lyaxlya_lyaxlyb_lyaxqso_lybxqso',
+}
+
+
+def build_dr16_configs(workdir, nt, extension=None, global_cov_file=None,
+                       fit_types=None, sample_params=None,
+                       control_extra=None):
+    """Write the DR16-shaped correlation, metal and ini files into
+    ``workdir``; returns {fit label: main.ini path}. The data vectors are
+    placeholders until regenerate_dr16_from_truth."""
+    from .build_config import BuildConfig
+
+    workdir = Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    correlations = {}
+    for name, (stem, is_cross) in DR16_CORRS.items():
+        path = workdir / f'{stem}.fits'
+        metal_path = workdir / f'metal_{stem}.fits'
+        if not path.exists():
+            coords = _write_correlation_data(path, is_cross, 2.33, rng,
+                                             nt=nt)
+            metals = DR16_OPTIONS['metals']
+            # Physical line-misidentification rp offsets (puts the
+            # SiIII(1207) bump at ~21 Mpc/h and keeps the two metal
+            # lines distinguishable — i.e. their biases non-degenerate)
+            shifts = metal_rp_shifts(metals, 2.33)
+            write_metal_file(metal_path, coords, 2.33,
+                             'QSO' if is_cross else 'LYA', 'LYA',
+                             metals_in1=() if is_cross else metals,
+                             metals_in2=metals, rp_shifts=shifts)
+        correlations[name] = {'corr_path': str(path),
+                              'metal_path': str(metal_path),
+                              'rp-min': -200. if is_cross else 0.}
+
+    mains = {}
+    for label, fit_type in (fit_types or DR16_FIT_TYPES).items():
+        builder = BuildConfig(options=dict(DR16_OPTIONS), overwrite=True)
+        fit_info = {'fitter': True, 'zeff': 2.33,
+                    'sample_params': list(sample_params or DR16_SAMPLED)}
+        if global_cov_file is not None:
+            fit_info['global_cov_file'] = str(global_cov_file)
+        name_ext = label if extension is None else f'{label}-{extension}'
+        mains[label] = builder.build(
+            correlations, fit_type, fit_info, workdir,
+            parameters=dict(DR16_PARAMETERS), name_extension=name_ext)
+        if control_extra:
+            _append_control(mains[label], control_extra)
+    return mains
+
+
+def _append_control(main_path, extra):
+    """Merge extra [control] keys into a generated main.ini."""
+    import configparser
+    config = configparser.ConfigParser()
+    config.optionxform = str
+    config.read(main_path)
+    if 'control' not in config:
+        config['control'] = {}
+    config['control'].update(extra)
+    with open(main_path, 'w') as f:
+        config.write(f)
+
+
+def regenerate_dr16_from_truth(workdir, main_path, nt):
+    """Second pass: replace the placeholder data vectors with the model
+    evaluated at the injected truth (DR16_PARAMETERS), noiseless."""
+    from .vega_interface import VegaInterface
+
+    workdir = Path(workdir)
+    vega = VegaInterface(main_path)
+    model_cf = vega.compute_model(run_init=False)
+    rng = np.random.default_rng(1)
+    for name in vega.corr_items:
+        stem, is_cross = DR16_CORRS[name]
+        _write_correlation_data(workdir / f'{stem}.fits', is_cross, 2.33,
+                                rng, model_xi=np.asarray(model_cf[name]),
+                                nt=nt)

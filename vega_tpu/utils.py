@@ -1,6 +1,6 @@
 """Shared utilities: file resolution, bias/beta algebra, covariance helpers.
 
-TPU-native re-imagination of the reference's vega/utils.py. The numba-jitted
+JAX re-imagination of the reference's vega/utils.py. The numba-jitted
 scalar kernels there (sinc, hubble, growth) become plain jax/numpy ops here;
 the LRU caches are dropped entirely because everything downstream is traced
 into a single jitted likelihood (caching is the compiler's job).
@@ -64,15 +64,13 @@ _EXP_COEFFS = (1.0 / 3628800.0, 1.0 / 362880.0, 1.0 / 40320.0,
 
 
 def fast_exp64(x):
-    """Reduced-precision f64 exp for TPU hot loops (~2e-13 relative).
+    """Reduced-precision f64 exp for the hot loops (~2e-13 relative).
 
-    TPU has no f64 hardware; XLA emulates jnp.exp at full 1e-16
-    precision, which dominates the likelihood's runtime (the model is
-    a handful of (muk x k)-grid exponentials per evaluation). The chi^2
-    parity budget is 1e-8 relative, so a Cody-Waite reduction plus a
-    degree-10 Taylor polynomial (max rel err ~2e-13 for |r| <= ln2/2)
-    is indistinguishable in results while doing far fewer emulated-f64
-    operations.
+    jnp.exp is accurate to ~1e-16; the chi^2 parity budget is 1e-8
+    relative, so a Cody-Waite reduction plus a degree-10 Taylor
+    polynomial (max rel err ~2e-13 for |r| <= ln2/2) is
+    indistinguishable in results with fewer f64 operations where the
+    (muk x k)-grid exponentials are a large share of the work.
 
     Range: exact-shaped for x in (-87.3, 709); inputs below 2^-126
     flush to exactly 0 (the physics factors this describes are
@@ -100,21 +98,18 @@ def fast_exp64(x):
 def use_fast_exp():
     """Trace-time switch for :func:`grid_exp` (VEGA_TPU_FAST_EXP=1).
 
-    Off by default: measured on a v5e, swapping the hot exps for
-    fast_exp64 left f64 throughput unchanged (280 vs 282 evals/s/chip)
-    — the f64 mode is bound by the emulated-f64 *elementwise*
-    arithmetic across the whole (muk x k) factor pipeline, of which
-    the exp calls are too small a slice to matter. Kept as validated
-    infrastructure (chi^2 parity at 1e-9) for configurations where the
-    exp share is larger.
+    Off by default: its effect on throughput has not been measured on
+    the GPU. Kept as validated infrastructure (chi^2 parity at 1e-9,
+    tests/test_fast_exp.py) for configurations where the exp share of
+    the dense pipeline is large.
     """
     import os
     return os.environ.get('VEGA_TPU_FAST_EXP', '').strip() == '1'
 
 
 def grid_exp(x):
-    """exp() for the hot (muk x k)-grid factors: fast_exp64 on TPU f64,
-    jnp.exp otherwise. Fully differentiable either way (fast_exp64 is
+    """exp() for the hot (muk x k)-grid factors: fast_exp64 when
+    VEGA_TPU_FAST_EXP=1, jnp.exp otherwise. Fully differentiable either way (fast_exp64 is
     plain arithmetic, so jax.grad/hessian trace through it)."""
     import jax.numpy as jnp
     if use_fast_exp():
